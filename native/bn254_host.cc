@@ -1,6 +1,6 @@
-// Native host data-plane for the TPU BN254 verifier framework.
+// Native host data-plane for the BN254 verifier framework.
 //
-// Role: the CPU-side "data loader" feeding the TPU pipeline — batch parsing
+// Role: the CPU-side "data loader" feeding the device pipeline — batch parsing
 // of gnark-serialized proofs and batch conversion of 32-byte big-endian
 // field elements into the limb-major (16 x n) uint32 Montgomery tensors the
 // device kernels consume (see ops/limbs.py for the layout contract).

@@ -1,9 +1,9 @@
-"""TPU-native BN254 SNARK verifier framework.
+"""Accelerator BN254 SNARK verifier framework.
 
 A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of
 succinctlabs/snark-bn254-verifier (Groth16 + PlonK verification over BN254,
-bit-compatible with gnark/SP1 serialized proofs and verifying keys), designed
-TPU-first: multi-limb Montgomery field arithmetic vectorized over batch lanes,
+bit-compatible with gnark/SP1 serialized proofs and verifying keys), built
+around batches: multi-limb Montgomery field arithmetic vectorized over lanes,
 the full Fp2/Fp6/Fp12 tower, optimal-ate pairings and Pippenger MSM as device
 kernels, with batched verification sharded across device meshes.
 

@@ -11,7 +11,7 @@ offline, so this driver offers the two flows that ARE runnable:
     (the full True/False run needs the out-of-repo SP1 VK fixtures —
     pass --vk PATH if you have them).
   * ``--synthetic``: generate trapdoor test vectors in exact gnark byte
-    format and run full verification (oracle or TPU backend).
+    format and run full verification (oracle or jax backend).
 
 Usage:
     python -m snark_bn254_verifier_tpu.examples --synthetic --mode plonk

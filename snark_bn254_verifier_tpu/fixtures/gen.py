@@ -26,7 +26,7 @@ from __future__ import annotations
 import random
 import struct
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from ..oracle import bn254 as bn
 from ..utils import serialization as ser
@@ -65,6 +65,7 @@ def gen_groth16_vector(
     num_inputs: int = 2,
     n_commitments: int = 0,
     committed_array_lens: Tuple[int, ...] = (0,),
+    proof_seed: Optional[int] = None,
 ) -> SyntheticVector:
     """Trapdoor Groth16 vector.
 
@@ -73,6 +74,10 @@ def gen_groth16_vector(
     loader past byte 256, groth16/converter.rs:14-25) and the VK's
     public_and_commitment_committed arrays (lengths parsed, contents
     skipped, converter.rs:47-65). See gen_groth16_vector_sp1_shaped.
+
+    ``proof_seed`` draws the inputs and the proof from a second stream:
+    vectors with the same ``seed`` and different proof seeds share one VK
+    (the VK bytes equal those of ``proof_seed=None``).
     """
     rng = random.Random(f"groth16-{seed}")
     alpha, beta, gamma, delta = (_rand_fr(rng) for _ in range(4))
@@ -80,6 +85,11 @@ def gen_groth16_vector(
     inputs = [_rand_fr(rng) for _ in range(num_inputs)]
 
     a, b = _rand_fr(rng), _rand_fr(rng)
+    prng = rng
+    if proof_seed is not None:
+        prng = random.Random(f"groth16-{seed}-proof-{proof_seed}")
+        inputs = [_rand_fr(prng) for _ in range(num_inputs)]
+        a, b = _rand_fr(prng), _rand_fr(prng)
     pi = kappas[0]
     for w, kap in zip(inputs, kappas[1:]):
         pi = (pi + w * kap) % R
@@ -118,13 +128,15 @@ def gen_groth16_vector(
     proof_bytes += ser.g1_to_uncompressed_bytes(_g1(krs))
     proof_bytes += struct.pack(">I", n_commitments)
     for _ in range(n_commitments):
-        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(_rand_fr(rng)))
+        proof_bytes += ser.g1_to_uncompressed_bytes(_g1(_rand_fr(prng)))
     proof_bytes += ser.g1_to_uncompressed_bytes(_g1(1))
 
     return SyntheticVector(bytes(proof_bytes), bytes(vk_bytes), inputs)
 
 
-def gen_groth16_vector_sp1_shaped(seed: int = 0) -> SyntheticVector:
+def gen_groth16_vector_sp1_shaped(
+    seed: int = 0, proof_seed: Optional[int] = None
+) -> SyntheticVector:
     """Trapdoor vector with the SP1 Groth16 VK/proof BYTE SHAPE
     (VERDICT r3 item #9: the default 2-input synthetic didn't match).
 
@@ -139,7 +151,8 @@ def gen_groth16_vector_sp1_shaped(seed: int = 0) -> SyntheticVector:
     -- offsets, skips, trailing regions -- equals the golden one.
     """
     return gen_groth16_vector(
-        seed=seed, num_inputs=3, n_commitments=1, committed_array_lens=(0,)
+        seed=seed, num_inputs=3, n_commitments=1, committed_array_lens=(0,),
+        proof_seed=proof_seed,
     )
 
 
@@ -157,7 +170,14 @@ def _find_root_of_unity(n: int, rng: random.Random) -> int:
             return w
 
 
-def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True) -> SyntheticVector:
+def gen_plonk_vector(
+    seed: int = 0,
+    num_inputs: int = 2,
+    with_bsb22: bool = True,
+    proof_seed: Optional[int] = None,
+) -> SyntheticVector:
+    """Trapdoor PlonK vector. ``proof_seed`` draws the inputs and the proof
+    from a second stream, so vectors with one ``seed`` share one VK."""
     rng = random.Random(f"plonk-{seed}")
     n = 8
     omega = _find_root_of_unity(n, rng)
@@ -171,6 +191,8 @@ def gen_plonk_vector(seed: int = 0, num_inputs: int = 2, with_bsb22: bool = True
     qcp = [_rand_fr(rng)] if with_bsb22 else []
     cci = [1] if with_bsb22 else []
 
+    if proof_seed is not None:
+        rng = random.Random(f"plonk-{seed}-proof-{proof_seed}")
     inputs = [_rand_fr(rng) for _ in range(num_inputs)]
 
     # proof commitments as known dlogs

@@ -5,7 +5,7 @@ through three primitives — MSM, pairing, batched pairing — so the same
 protocol logic runs against either:
 
   * the ``oracle`` backend: pure-Python ints (ground truth, always available)
-  * the ``jax`` backend: TPU device kernels (ops/), used by default when the
+  * the ``jax`` backend: device kernels (ops/), used by default when the
     device pipeline is built.
 
 Host-side Fr scalar work (transcript challenges, Lagrange/linearization

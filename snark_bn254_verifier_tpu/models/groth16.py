@@ -106,31 +106,6 @@ class Groth16Verifier:
             hashlib.sha256(vk).digest(),
             getattr(backend_obj, "name", None) or id(backend_obj),
         )
-        if getattr(backend_obj, "name", None) == "jax":
-            from ..ops import field as F
-
-            if F.use_pallas():
-                # TPU fast path: run the batched pipeline at batch 1 — one
-                # fused device program chain and a single bool fetch. The
-                # generic backend protocol syncs to host between MSM and
-                # pairing, and over a remote attachment each device->host
-                # round trip costs a fixed ~60-150 ms (measured: 746 ms
-                # per verify, ~90% of it fetches). A True result is
-                # returned directly; on failure we FALL THROUGH to the
-                # generic path so the reference's error semantics
-                # (PrepareInputsFailedError vs plain False, lib.rs:44-49)
-                # are reproduced exactly — failures pay both paths, the
-                # success fast path is the production case.
-                bkey = (key[0], "batch1")
-                bv = Groth16Verifier._cache.get(bkey)
-                if bv is None:
-                    from ..parallel.batch import Groth16BatchVerifier
-
-                    bv = Groth16BatchVerifier(vk)
-                    Groth16Verifier._cache[bkey] = bv
-                ok = bv.verify_batch([proof], [list(public_inputs)])
-                if bool(ok[0]):
-                    return True
         ent = Groth16Verifier._cache.get(key)
         if ent is None:
             vk_obj = ser.load_groth16_verifying_key_from_bytes(vk)

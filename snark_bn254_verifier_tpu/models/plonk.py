@@ -238,27 +238,6 @@ class PlonkVerifier:
         from .backend import get_backend
 
         backend_obj = get_backend(backend)
-        if getattr(backend_obj, "name", None) == "jax":
-            from ..ops import field as F
-
-            if F.use_pallas():
-                # TPU fast path: batched pipeline at batch 1 (see
-                # models/groth16.py — one fused device chain, one bool
-                # fetch vs ~60-150 ms per host round trip on a remote
-                # attachment). True returns directly; failures fall
-                # through to the generic path so every reference error
-                # (InvalidWitnessError, OpeningPolyMismatchError, ...)
-                # raises exactly as on the oracle tier.
-                bkey = (key, "batch1")
-                bv = PlonkVerifier._vk_cache.get(bkey)
-                if bv is None:
-                    from ..parallel.batch import PlonkBatchVerifier
-
-                    bv = PlonkBatchVerifier(vk)
-                    PlonkVerifier._vk_cache[bkey] = bv
-                ok = bv.verify_batch([proof], [list(public_inputs)])
-                if bool(ok[0]):
-                    return True
         vk_obj = PlonkVerifier._vk_cache.get(key)
         if vk_obj is None:
             vk_obj = ser.load_plonk_verifying_key_from_bytes(vk)

@@ -1,4 +1,4 @@
-"""G1/G2 elliptic-curve ops on TPU, generic over the coordinate field.
+"""G1/G2 elliptic-curve ops, generic over the coordinate field.
 
 Points live in Jacobian coordinates (X, Y, Z) — x = X/Z^2, y = Y/Z^3,
 infinity encoded as Z == 0 — so the hot loops (scalar mul, MSM, pairing

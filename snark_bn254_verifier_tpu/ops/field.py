@@ -1,4 +1,4 @@
-"""Batched Montgomery field arithmetic for TPU (jnp reference path).
+"""Batched Montgomery field arithmetic (jnp reference path).
 
 Implements Fq/Fr arithmetic on uint32 limb arrays of shape ``(16, *batch)``
 (see ops/limbs.py for the layout rationale). All functions broadcast over
@@ -8,16 +8,12 @@ strictly below 2^32 so plain uint32 lane arithmetic is exact:
 
     t[j] + a_i*b_j + c  <=  (2^16-1) + (2^16-1)^2 + (2^16-1)  =  2^32 - 1.
 
-This is the TPU-native replacement for the reference's `substrate-bn` field
-layer (`bn::Fq`, `bn::Fr`; reference call sites at
-verifier/src/groth16/verify.rs:2, verifier/src/plonk/verify.rs:2).
-A Pallas kernel with identical semantics lives in ops/field_pallas.py.
+This replaces the reference's `substrate-bn` field layer (`bn::Fq`,
+`bn::Fr`; reference call sites at verifier/src/groth16/verify.rs:2,
+verifier/src/plonk/verify.rs:2).
 """
 
 from __future__ import annotations
-
-import functools
-from typing import List
 
 import jax
 import jax.numpy as jnp
@@ -29,14 +25,6 @@ from .limbs import LIMB_BITS, LIMB_MASK, NUM_LIMBS, int_to_limbs
 L = NUM_LIMBS
 _MASK = np.uint32(LIMB_MASK)
 _SHIFT = LIMB_BITS
-
-
-def _unstack(x) -> List:
-    return [x[i] for i in range(L)]
-
-
-def _stack(parts: List):
-    return jnp.stack(parts, axis=0)
 
 
 class FieldSpec:
@@ -77,179 +65,75 @@ FR = FieldSpec(bn.R, "fr")
 # ---------------------------------------------------------------------------
 
 
-def _cond_sub_mod(spec: FieldSpec, t: List, extra):
-    """Given limbs t[0..L) plus an overflow word ``extra``, return
-    t - modulus if t >= modulus, else t.
+def _cond_sub_mod(spec: FieldSpec, x, extra):
+    """Given limbs ``x`` (16, *batch) plus an overflow word ``extra``,
+    return x - modulus if x >= modulus, else x.
 
     ``extra`` may be any uint32 whose truthiness means "the full value is
     >= 2^256" (mont_mul passes t[L] + top_extra, provably 0 or 1 for BN254
     moduli); the result is guaranteed < 2*modulus, so one conditional
     subtraction fully reduces."""
-    if not IN_KERNEL:
-        x = t if not isinstance(t, list) else _stack(t)
-        nv = _mod_vec(spec, x.ndim - 1)
+    nv = _mod_vec(spec, x.ndim - 1)
 
-        def bsub(bw, inp):
-            tj, nj = inp
-            s = tj - nj - bw
-            return s >> np.uint32(31), s & _MASK
+    def bsub(bw, inp):
+        tj, nj = inp
+        s = tj - nj - bw
+        return s >> np.uint32(31), s & _MASK
 
-        borrow, d = jax.lax.scan(
-            bsub,
-            x[0] * np.uint32(0),
-            (x, jnp.broadcast_to(nv, x.shape)),
-        )
-        do_sub = jnp.logical_or(extra.astype(jnp.bool_), borrow == 0)
-        return _unstack(jnp.where(do_sub[None], d, x))
-    n = spec.mod_limbs
-    borrow = None
-    d = []
-    for j in range(L):
-        s = t[j] - n[j] - (borrow if borrow is not None else np.uint32(0))
-        d.append(s & _MASK)
-        borrow = s >> np.uint32(31)
-    # subtract happens when extra==1 (value >= 2^256 > modulus) or no borrow
+    borrow, d = jax.lax.scan(
+        bsub,
+        x[0] * np.uint32(0),
+        (x, jnp.broadcast_to(nv, x.shape)),
+    )
     do_sub = jnp.logical_or(extra.astype(jnp.bool_), borrow == 0)
-    return [jnp.where(do_sub, dj, tj) for dj, tj in zip(d, t)]
+    return jnp.where(do_sub[None], d, x)
 
 
 def add(spec: FieldSpec, a, b):
     """(a + b) mod modulus."""
-    if not IN_KERNEL:
-        a = jnp.asarray(a)
-        b = jnp.asarray(b)
-        batch = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
-        a = jnp.broadcast_to(a, (L,) + batch)
-        b = jnp.broadcast_to(b, (L,) + batch)
+    a = jnp.asarray(a)
+    b = jnp.asarray(b)
+    batch = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a = jnp.broadcast_to(a, (L,) + batch)
+    b = jnp.broadcast_to(b, (L,) + batch)
 
-        def cadd(c, inp):
-            s = inp[0] + inp[1] + c
-            return s >> np.uint32(_SHIFT), s & _MASK
+    def cadd(c, inp):
+        s = inp[0] + inp[1] + c
+        return s >> np.uint32(_SHIFT), s & _MASK
 
-        vz = (a[0] + b[0]) * np.uint32(0)
-        carry, t = jax.lax.scan(cadd, vz, (a, b))
-        return _stack(_cond_sub_mod(spec, t, carry))
-    al, bl = _unstack(a), _unstack(b)
-    t = []
-    carry = np.uint32(0)
-    for j in range(L):
-        s = al[j] + bl[j] + carry
-        t.append(s & _MASK)
-        carry = s >> np.uint32(_SHIFT)
-    return _stack(_cond_sub_mod(spec, t, carry))
+    vz = (a[0] + b[0]) * np.uint32(0)
+    carry, t = jax.lax.scan(cadd, vz, (a, b))
+    return _cond_sub_mod(spec, t, carry)
 
 
 def sub(spec: FieldSpec, a, b):
     """(a - b) mod modulus."""
-    if not IN_KERNEL:
-        a = jnp.asarray(a)
-        b = jnp.asarray(b)
-        batch = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
-        a = jnp.broadcast_to(a, (L,) + batch)
-        b = jnp.broadcast_to(b, (L,) + batch)
-        nv = jnp.broadcast_to(_mod_vec(spec, len(batch)), (L,) + batch)
+    a = jnp.asarray(a)
+    b = jnp.asarray(b)
+    batch = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a = jnp.broadcast_to(a, (L,) + batch)
+    b = jnp.broadcast_to(b, (L,) + batch)
+    nv = jnp.broadcast_to(_mod_vec(spec, len(batch)), (L,) + batch)
 
-        def bsub(bw, inp):
-            s = inp[0] - inp[1] - bw
-            return s >> np.uint32(31), s & _MASK
+    def bsub(bw, inp):
+        s = inp[0] - inp[1] - bw
+        return s >> np.uint32(31), s & _MASK
 
-        vz = (a[0] + b[0]) * np.uint32(0)
-        borrow, d = jax.lax.scan(bsub, vz, (a, b))
-        need = borrow.astype(jnp.bool_)
-
-        def cadd(c, inp):
-            s = inp[0] + jnp.where(need, inp[1], np.uint32(0)) + c
-            return s >> np.uint32(_SHIFT), s & _MASK
-
-        _, out = jax.lax.scan(cadd, vz, (d, nv))
-        return out
-    al, bl = _unstack(a), _unstack(b)
-    n = spec.mod_limbs
-    d = []
-    borrow = np.uint32(0)
-    for j in range(L):
-        s = al[j] - bl[j] - borrow
-        d.append(s & _MASK)
-        borrow = s >> np.uint32(31)
-    # if borrowed, add modulus back
+    vz = (a[0] + b[0]) * np.uint32(0)
+    borrow, d = jax.lax.scan(bsub, vz, (a, b))
     need = borrow.astype(jnp.bool_)
-    out = []
-    carry = np.uint32(0)
-    for j in range(L):
-        s = d[j] + jnp.where(need, jnp.uint32(n[j]), jnp.uint32(0)) + carry
-        out.append(s & _MASK)
-        carry = s >> np.uint32(_SHIFT)
-    return _stack(out)
+
+    def cadd(c, inp):
+        s = inp[0] + jnp.where(need, inp[1], np.uint32(0)) + c
+        return s >> np.uint32(_SHIFT), s & _MASK
+
+    _, out = jax.lax.scan(cadd, vz, (d, nv))
+    return out
 
 
 def neg(spec: FieldSpec, a):
     zero = jnp.zeros_like(a)
     return jnp.where(is_zero(a)[None], zero, sub(spec, zero, a))
-
-
-_use_pallas_cached = None
-
-# When True (set around Pallas kernel tracing via kernel_mode()), field ops
-# avoid constructs Mosaic can't lower or capture: no captured array
-# constants (built from python scalars instead) and a fori_loop-based
-# Montgomery multiply with dynamic limb indexing instead of scatter-adds.
-IN_KERNEL = False
-
-
-class kernel_mode:
-    """Context manager: trace field/tower/pairing code in kernel-safe form."""
-
-    def __enter__(self):
-        global IN_KERNEL
-        self._prev = IN_KERNEL
-        IN_KERNEL = True
-        return self
-
-    def __exit__(self, *exc):
-        global IN_KERNEL
-        IN_KERNEL = self._prev
-        return False
-
-
-def use_pallas() -> bool:
-    """Use the Pallas Montgomery kernel on real TPU backends (the jnp path
-    stays for CPU tests / interpret mode). Override with
-    TPU_BN254_PALLAS=0/1."""
-    global _use_pallas_cached
-    if _use_pallas_cached is None:
-        import os
-
-        env = os.environ.get("TPU_BN254_PALLAS")
-        if env is not None:
-            _use_pallas_cached = env == "1"
-        else:
-            import jax
-
-            try:
-                _use_pallas_cached = jax.devices()[0].platform == "tpu"
-            except Exception:
-                _use_pallas_cached = False
-    return _use_pallas_cached
-
-
-_pallas_interpret_cached = None
-
-
-def pallas_interpret() -> bool:
-    """Force Pallas interpret mode (TPU_BN254_PALLAS_INTERPRET=1).
-
-    Lets the CPU test suite trace/execute the EXACT Pallas dispatch path the
-    real-TPU run takes (Pallas × shard_map × check_vma — the round-3 bench
-    crash class) without hardware: TPU_BN254_PALLAS=1 turns the dispatch on,
-    this flag makes the kernels executable on the CPU backend."""
-    global _pallas_interpret_cached
-    if _pallas_interpret_cached is None:
-        import os
-
-        _pallas_interpret_cached = (
-            os.environ.get("TPU_BN254_PALLAS_INTERPRET") == "1"
-        )
-    return _pallas_interpret_cached
 
 
 def _mod_vec(spec: FieldSpec, batch_ndim: int):
@@ -273,17 +157,7 @@ def mont_mul(spec: FieldSpec, a, b):
     count — no scatter/gather anywhere — which is what makes the XLA CPU
     path compile in milliseconds instead of minutes (XLA:CPU's LLVM
     codegen is superlinear in fused scatter chains).
-
-    On TPU the Pallas kernel (ops/field_pallas.py) with a VMEM-resident
-    accumulator is used instead — bit-identical semantics, far less HBM
-    traffic.
     """
-    if IN_KERNEL:
-        return _mont_mul_kernel_safe(spec, a, b)
-    if use_pallas():
-        from . import field_pallas
-
-        return field_pallas.mont_mul_pallas(spec, a, b, interpret=pallas_interpret())
     a = jnp.asarray(a)
     b = jnp.asarray(b)
     batch_shape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
@@ -323,51 +197,7 @@ def mont_mul(spec: FieldSpec, a, b):
         return s >> np.uint32(_SHIFT), s & _MASK
     top_extra, limbs = jax.lax.scan(ripple, vz, t[:L])
     extra = t[L] + top_extra
-    return _stack(_cond_sub_mod(spec, _unstack(limbs), extra))
-
-
-def _mont_mul_kernel_safe(spec: FieldSpec, a, b):
-    """Mosaic-lowerable CIOS: fori_loop over the outer limb index with
-    dynamic indexing (no scatter-adds), modulus limbs as python scalars (no
-    captured array constants). Bit-identical to the XLA paths."""
-    a = jnp.asarray(a)
-    b = jnp.asarray(b)
-    batch_shape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
-    a_rows = [jnp.broadcast_to(a[j], batch_shape) for j in range(L)]
-    b_rows = [jnp.broadcast_to(b[j], batch_shape) for j in range(L)]
-    mod = spec.mod_limbs
-    n0inv = spec.n0inv
-
-    def body(i, t):
-        t = list(t)
-        # Mosaic has no value-level dynamic_slice: select limb i of `a`
-        # with a flat select chain
-        ai = a_rows[0]
-        for j in range(1, L):
-            ai = jnp.where(i == j, a_rows[j], ai)
-        c = np.uint32(0)
-        for j in range(L):
-            s = t[j] + ai * b_rows[j] + c
-            t[j] = s & _MASK
-            c = s >> np.uint32(_SHIFT)
-        s = t[L] + c
-        t[L] = s & _MASK
-        t[L + 1] = s >> np.uint32(_SHIFT)
-        m = (t[0] * n0inv) & _MASK
-        s = t[0] + m * mod[0]
-        c = s >> np.uint32(_SHIFT)
-        for j in range(1, L):
-            s = t[j] + m * mod[j] + c
-            t[j - 1] = s & _MASK
-            c = s >> np.uint32(_SHIFT)
-        s = t[L] + c
-        t[L - 1] = s & _MASK
-        t[L] = t[L + 1] + (s >> np.uint32(_SHIFT))
-        return tuple(t)
-
-    t0 = tuple(jnp.zeros(batch_shape, jnp.uint32) for _ in range(L + 2))
-    t = list(jax.lax.fori_loop(0, L, body, t0))
-    return _stack(_cond_sub_mod(spec, t[:L], t[L]))
+    return _cond_sub_mod(spec, limbs, extra)
 
 
 def mont_sq(spec: FieldSpec, a):
@@ -403,7 +233,7 @@ def geq_half(spec: FieldSpec, a):
     Expects canonical (non-Montgomery) limbs."""
     half = (spec.modulus - 1) // 2
     hl = [np.uint32((half >> (LIMB_BITS * i)) & LIMB_MASK) for i in range(L)]
-    al = _unstack(a)
+    al = [a[i] for i in range(L)]
     gt = None
     for j in range(L):  # from least to most significant
         limb_gt = al[j] > hl[j]
@@ -427,14 +257,7 @@ def from_mont(spec: FieldSpec, a):
 
 
 def _const(np_limbs, like):
-    """Broadcast a (16,) numpy constant against the batch shape of ``like``.
-    In kernel mode the array is built from python scalars via broadcast ops
-    (Mosaic forbids captured array constants)."""
-    if IN_KERNEL:
-        batch = like.shape[1:]
-        return jnp.stack(
-            [jnp.full(batch, int(v), jnp.uint32) for v in np.asarray(np_limbs)]
-        )
+    """Broadcast a (16,) numpy constant against the batch shape of ``like``."""
     c = jnp.asarray(np_limbs, dtype=jnp.uint32)
     return c.reshape((L,) + (1,) * (like.ndim - 1))
 
@@ -443,39 +266,13 @@ def one_mont(spec: FieldSpec, like):
     return jnp.broadcast_to(_const(spec.one_mont_np, like), like.shape)
 
 
-def scalar_bit_of(value: int, shift):
-    """Bit `shift` (traced scalar int32) of a fixed python integer, via
-    selects over its 32-bit words — kernel-safe (no array constants)."""
-    nwords = max(1, (value.bit_length() + 31) // 32)
-    word_idx = shift // 32
-    bit_idx = (shift % 32).astype(jnp.uint32)
-    word = jnp.zeros((), jnp.uint32)
-    for w in range(nwords):
-        word = jnp.where(
-            word_idx == w, jnp.uint32((value >> (32 * w)) & 0xFFFFFFFF), word
-        )
-    return (word >> bit_idx) & np.uint32(1)
-
-
 def pow_const(spec: FieldSpec, a, exponent: int):
     """a^exponent (Montgomery in, Montgomery out) for a fixed Python-int
-    exponent; a scan (XLA) or fori_loop (kernel mode) over the static bit
-    schedule — the traced graph stays two multiplies regardless of
-    exponent size."""
+    exponent; a scan over the static bit schedule — the traced graph
+    stays two multiplies regardless of exponent size."""
     if exponent == 0:
         return one_mont(spec, a)
     init = one_mont(spec, a)
-    nbits = exponent.bit_length()
-    if IN_KERNEL:
-
-        def body(i, acc):
-            bit = scalar_bit_of(exponent, np.int32(nbits - 1) - i)
-            acc = mont_sq(spec, acc)
-            acc_mul = mont_mul(spec, acc, a)
-            return select(bit == 1, acc_mul, acc)
-
-        return jax.lax.fori_loop(0, nbits, body, init)
-
     bits = jnp.asarray([int(b) for b in bin(exponent)[2:]], dtype=jnp.uint32)
 
     def body(acc, bit):

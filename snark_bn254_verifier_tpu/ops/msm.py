@@ -1,4 +1,4 @@
-"""Large multi-scalar multiplication: TPU-shaped Pippenger.
+"""Large multi-scalar multiplication: static-shape Pippenger.
 
 The reference delegates MSM to ``AffineG1::msm`` (call sites
 verifier/src/plonk/verify.rs:284, verifier/src/plonk/kzg.rs:82,161,175 —

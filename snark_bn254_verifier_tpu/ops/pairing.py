@@ -1,14 +1,13 @@
-"""Optimal-ate pairing on TPU: batched Miller loops + final exponentiation.
+"""Optimal-ate pairing: batched Miller loops + final exponentiation.
 
-TPU-first design:
+Design:
   * The Miller loop is a ``lax.scan`` over the static 64-bit schedule of
     6x+2; the traced graph holds one doubling step, one conditional addition
     step and two sparse line multiplies.
   * Every group of independent Fq2 products inside a step is flattened into
     a single wide Montgomery multiply (see ops/tower.py) — a full Miller
     iteration issues ~6 wide multiplies instead of ~200 scalar ones, which
-    keeps both the XLA graph and the op dispatch count small while giving
-    the VPU large well-shaped operands.
+    keeps both the XLA graph and the op dispatch count small.
   * The loop point T stays in Jacobian coordinates; line evaluations are
     scaled by Fq2 factors (annihilated by the final exponentiation), so
     there are ZERO field inversions in the hot path.
@@ -206,21 +205,12 @@ def miller_loop(p_affine, q_affine):
         t = jax.tree_util.tree_map(lambda a_, b_: F.select(take, b_, a_), t, t2)
         return f, t
 
-    if F.IN_KERNEL:
-        nbits = bn.ATE_LOOP_COUNT.bit_length()
+    bits = jnp.asarray(_MILLER_BITS, dtype=jnp.uint32)
 
-        def body_k(i, carry):
-            bit = F.scalar_bit_of(bn.ATE_LOOP_COUNT, np.int32(nbits - 2) - i)
-            return step(*carry, bit == 1)
+    def body(carry, bit):
+        return step(*carry, bit.astype(jnp.bool_)), None
 
-        f, t = jax.lax.fori_loop(0, nbits - 1, body_k, (f0, t0))
-    else:
-        bits = jnp.asarray(_MILLER_BITS, dtype=jnp.uint32)
-
-        def body(carry, bit):
-            return step(*carry, bit.astype(jnp.bool_)), None
-
-        (f, t), _ = jax.lax.scan(body, (f0, t0), bits)
+    (f, t), _ = jax.lax.scan(body, (f0, t0), bits)
 
     q1 = _g2_frobenius_affine(q, 1)
     q2 = _g2_frobenius_affine(q, 2)
@@ -235,18 +225,8 @@ def miller_loop(p_affine, q_affine):
 
 
 # ---------------------------------------------------------------------------
-# Final exponentiation — TWO tier-specific algorithms:
-#
-#   * Kernel tier (Pallas, F.IN_KERNEL): the x-chain hard part below
-#     (~17k Montgomery multiplies/lane vs ~62k for a per-p-digit scan in
-#     kernel form) — Mosaic-validated bit-exact on v5e via the bench
-#     preflight.
-#   * XLA tier: the base-p digit-Straus scan (_final_exp_digits). The
-#     x-chain's three sequential 62-step scans plus the stacked-pair
-#     combine ladder blow XLA:CPU's compile past 550 s (measured, r04 —
-#     it stalled the multichip dryrun and the smoke test tier); the single
-#     254-step digit scan compiles in seconds and the XLA tier is the
-#     test/dryrun path, not the production TPU path.
+# Final exponentiation: easy part, then the hard part (p^4 - p^2 + 1)/r
+# as a 254-step digit-Straus scan over its base-p digits.
 #
 # Hard-part decomposition, derived numerically from the BN parameter
 # x = X_PARAM (verified in-tree: the signed base-p digits of
@@ -255,15 +235,11 @@ def miller_loop(p_affine, q_affine):
 #   (p^4-p^2+1)/r = p^3 + (6x^2+1) p^2
 #                   - (36x^3+18x^2+12x-1) p - (36x^3+30x^2+18x+2)
 #
-# With A = m^x, B = m^{x^2}, C = m^{x^3} (three cyclotomic exponentiations
-# by the fixed x), each digit power is a tiny Straus multi-exponentiation
-# over {C, B, A, m}. The reference's substrate-bn uses a comparable x-chain
-# (bn::final_exponentiation); this schedule was derived and verified
-# against the oracle independently.
+# The scan below uses the digits directly (bn.HARD_DIGITS). An x-chain
+# (A = m^x, B = m^{x^2}, C = m^{x^3} by three cyclotomic exponentiations,
+# then a small Straus combine over {C, B, A, m}) needs fewer multiplies;
+# the reference's substrate-bn uses one (bn::final_exponentiation).
 
-_X_BITS = [int(c) for c in bin(bn.X_PARAM)[2:]]
-
-# Base-p digits of (p^4 - p^2 + 1)/r for the XLA-tier digit-Straus scan.
 _HARD_DIGITS = bn.HARD_DIGITS
 _NBITS = max(d.bit_length() for d in _HARD_DIGITS)
 _STEP_IDX = np.asarray(
@@ -275,11 +251,10 @@ _STEP_IDX = np.asarray(
 )
 
 
-def _final_exp_digits(f):
-    """XLA-tier f^((p^12-1)/r): easy part, then a 254-step digit-Straus
-    scan over the base-p digits of the hard part with a 16-entry
-    subset-product table (one cyclotomic squaring + one gathered multiply
-    per bit). Compiles in seconds on XLA:CPU — see the tier note above."""
+def final_exponentiation(f):
+    """f^((p^12-1)/r): easy part, then a 254-step digit-Straus scan over
+    the base-p digits of the hard part with a 16-entry subset-product
+    table (one cyclotomic squaring + one gathered multiply per bit)."""
     f1 = T.fq12_conj(f)
     f2 = T.fq12_inv(f)
     f = T.fq12_mul(f1, f2)                       # ^(p^6 - 1)
@@ -321,94 +296,12 @@ def _final_exp_digits(f):
     return out
 
 
-def _cyc_exp_x(a):
-    """a^x for the fixed BN parameter, a in the cyclotomic subgroup.
-    Kernel tier only (the XLA tier runs _final_exp_digits — see the tier
-    note above). The loop stays ROLLED (fori_loop) with a select per bit:
-    one cyclotomic squaring + one conditional multiply per bit of x. A
-    fully unrolled static schedule would save the 34 zero-bit multiplies
-    (~1.9k mults/exp) but blew Mosaic's scoped-VMEM budget (measured on
-    v5e via the bench preflight)."""
-    assert F.IN_KERNEL, "x-chain is the kernel-tier algorithm"
-    nbits = len(_X_BITS)
-
-    def body_k(i, acc):
-        bit = F.scalar_bit_of(bn.X_PARAM, np.int32(nbits - 2) - i)
-        acc = T.fq12_cyclotomic_sq(acc)
-        return F.select(bit == 1, T.fq12_mul(acc, a), acc)
-
-    return jax.lax.fori_loop(0, nbits - 1, body_k, a)
-
-
-def _fe_easy_and_expx(f):
-    """Easy part + the three cyclotomic exponentiations by x:
-    f -> (m, A, B, C) = (f^((p^6-1)(p^2+1)), m^x, m^{x^2}, m^{x^3}).
-    Split from the combine so the Pallas tier can run them as two kernels
-    (the fused kernel's peak liveness blew the ~16 MB VMEM budget by 4 MB
-    on v5e — measured via the bench preflight)."""
-    f1 = T.fq12_conj(f)
-    f2 = T.fq12_inv(f)
-    m = T.fq12_mul(f1, f2)                       # ^(p^6 - 1)
-    m = T.fq12_mul(T.fq12_frobenius(m, 2), m)    # ^(p^2 + 1)
-    A = _cyc_exp_x(m)
-    B = _cyc_exp_x(A)
-    C = _cyc_exp_x(B)
-    return m, A, B, C
-
-
-def _fe_combine(m, A, B, C):
-    """The digit combine of the hard part (see decomposition above).
-
-    t0 = m^{-(36x^3+30x^2+18x+2)} = conj((C^18 B^15 A^9 m)^2)
-    t1 = m^{-(36x^3+18x^2+12x-1)} = conj((C^18 B^9 A^6)^2) * m
-    Kernel tier only. fori_loop ladders over a stacked 4-entry schedule:
-    an UNROLLED ladder body put ~29 Fq12 buffers live at the worst point
-    and blew Mosaic's ~16 MB scoped-VMEM stack (22.5 MB, measured on v5e
-    via the bench preflight); the rolled body reuses one iteration's
-    buffers, peaking at inputs + one 4-entry table + carry. The ladders
-    run SEQUENTIAL with entry products recomputed in place — peak VMEM
-    liveness ~7 Fq12 values instead of ~11 (the recomputed BA costs 2
-    extra multiplies per lane)."""
-    assert F.IN_KERNEL, "x-chain is the kernel-tier algorithm"
-    mul, sq, conj = T.fq12_mul, T.fq12_cyclotomic_sq, T.fq12_conj
-
-    def ladder_k(init, entries):
-        E = jnp.stack(entries, 0)  # (4, 16, 12, S, 128)
-
-        def body(i, acc):
-            e = E[0]
-            for d in range(1, 4):
-                e = jnp.where(i == d, E[d], e)
-            return mul(sq(acc), e)
-
-        return sq(jax.lax.fori_loop(0, 4, body, init))
-
-    BA = mul(B, A)
-    acc0 = ladder_k(C, [BA, B, mul(C, B), mul(BA, m)])
-    acc1 = ladder_k(C, [B, A, mul(C, A), B])
-    t0 = conj(acc0)
-    t1 = mul(conj(acc1), m)
-    # t2 = m^{6x^2+1} = (B^3)^2 * m
-    t2 = mul(sq(mul(sq(B), B)), m)
-    out = mul(t0, T.fq12_frobenius(t1, 1))
-    out = mul(out, T.fq12_frobenius(t2, 2))
-    return mul(out, T.fq12_frobenius(m, 3))
-
-
-def final_exponentiation(f):
-    """f^((p^12-1)/r), tier-dispatched (see the tier note above): x-chain
-    in kernel mode, digit-Straus scan on the XLA tier."""
-    if F.IN_KERNEL:
-        return _fe_combine(*_fe_easy_and_expx(f))
-    return _final_exp_digits(f)
-
-
 def _miller_product(pairs_p, pairs_q):
     """Miller loops over the pair axis, reduced to one Fq12.
 
     Rather than vmapping, the pair axis is folded into the broadcast batch
     of the limb tensors ((n,16,*b) -> (16,n,*b)) — every field op broadcasts
-    over trailing axes anyway, and this keeps Pallas kernels out of vmap.
+    over trailing axes anyway, and this keeps the field kernel out of vmap.
     """
     px = jnp.moveaxis(pairs_p[0], 0, 1)   # (16, n, *b)
     py = jnp.moveaxis(pairs_p[1], 0, 1)
@@ -440,26 +333,18 @@ def _miller_product(pairs_p, pairs_q):
 
 def _fixed_line_apply(f, c1row, c3row, xp, yp, p_inf):
     """Multiply f by the affine-normalized precomputed line (c0 == 1):
-    l00 = (yP, 0), l10 = c1*xP, l11 = c3. Infinity lanes are identity.
-
-    Rows arrive either as bare (16, 2) table entries (XLA tier) or already
-    broadcast to (16, 2, *batch) (the Pallas kernel builds them from SMEM
-    scalars — reshaping a loaded (16, 2) VMEM tile against the batch dims
-    is a tiled->untiled relayout Mosaic refuses)."""
+    l00 = (yP, 0), l10 = c1*xP, l11 = c3, with the (16, 2) table rows
+    broadcast against the batch. Infinity lanes are identity."""
     nb = xp.ndim - 1
-    if c1row.ndim == 2:
-        c1b = c1row.reshape(c1row.shape[:2] + (1,) * nb)
-        c3b = c3row.reshape(c3row.shape[:2] + (1,) * nb)
-    else:
-        c1b, c3b = c1row, c3row
+    c1b = c1row.reshape(c1row.shape[:2] + (1,) * nb)
+    c3b = c3row.reshape(c3row.shape[:2] + (1,) * nb)
     l00 = T.fq2_from_parts(yp, jnp.zeros_like(yp))
     l10 = T.fq2_mul_fq(c1b, xp)
     l11 = jnp.broadcast_to(c3b, c3b.shape[:2] + xp.shape[1:])
     return _mul_by_l(f, l00, l10, l11, skip=p_inf)
 
 
-def miller_product_mixed(var_p, var_q, fixed_ps, tables, row_fn=None,
-                         tail_fn=None):
+def miller_product_mixed(var_p, var_q, fixed_ps, tables):
     """Product of Miller loops sharing one f-squaring chain.
 
     var_p/var_q: one variable pair ((x, y, inf) affine tuples, Fq2 arrays
@@ -467,21 +352,12 @@ def miller_product_mixed(var_p, var_q, fixed_ps, tables, row_fn=None,
     affine G1 tuples; tables: matching tuple of ops/lines.py::G2LineTable
     field tuples (arrays (STEPS,16,2) / (2,16,2), batch independent).
 
-    Kernel mode (Pallas) MUST pass ``row_fn``/``tail_fn`` instead of value
-    ``tables``: indexing a value table by the fori_loop induction variable
-    traces a value-level dynamic_slice that Mosaic cannot lower (the r04
-    TPU batch-path crash). ``row_fn(i)`` returns the per-iteration
-    [(dbl_c1, dbl_c3, add_c1, add_c3), ...] rows — the Pallas kernel
-    implements it as a direct dynamic REF load, which Mosaic supports —
-    and ``tail_fn(j, k)`` the (tail_c1, tail_c3) of table j, tail step k.
-
     Semantics match multiplying the individual ``miller_loop`` values
     (infinity pairs contribute 1); the value may differ by an Fq2-subfield
     factor, which ``final_exponentiation`` annihilates.
     """
     nf = len(fixed_ps)
-    if row_fn is None:
-        assert nf == len(tables)
+    assert nf == len(tables)
     assert nf > 0 or var_p is not None
     some_x = fixed_ps[0][0] if nf else var_p[0]
     batch = some_x.shape[1:]
@@ -526,40 +402,26 @@ def miller_product_mixed(var_p, var_q, fixed_ps, tables, row_fn=None,
         return f, t
 
     t_init = t0 if has_var else ()
-    if F.IN_KERNEL:
-        assert row_fn is not None and tail_fn is not None, (
-            "kernel mode requires ref-based row loaders (Mosaic cannot "
-            "lower a value-level dynamic table index)"
-        )
-        nbits = bn.ATE_LOOP_COUNT.bit_length()
+    bits = jnp.asarray(_MILLER_BITS, dtype=jnp.uint32)
+    xs = (
+        bits,
+        tuple(
+            (
+                jnp.asarray(tb.dbl_c1),
+                jnp.asarray(tb.dbl_c3),
+                jnp.asarray(tb.add_c1),
+                jnp.asarray(tb.add_c3),
+            )
+            for tb in tables
+        ),
+    )
 
-        def body_k(i, carry):
-            f, t = carry
-            bit = F.scalar_bit_of(bn.ATE_LOOP_COUNT, np.int32(nbits - 2) - i)
-            return step(f, t, bit == 1, row_fn(i))
+    def body(carry, x):
+        bit, rows = x
+        f, t = step(carry[0], carry[1], bit.astype(jnp.bool_), rows)
+        return (f, t), None
 
-        f, t = jax.lax.fori_loop(0, nbits - 1, body_k, (f0, t_init))
-    else:
-        bits = jnp.asarray(_MILLER_BITS, dtype=jnp.uint32)
-        xs = (
-            bits,
-            tuple(
-                (
-                    jnp.asarray(tb.dbl_c1),
-                    jnp.asarray(tb.dbl_c3),
-                    jnp.asarray(tb.add_c1),
-                    jnp.asarray(tb.add_c3),
-                )
-                for tb in tables
-            ),
-        )
-
-        def body(carry, x):
-            bit, rows = x
-            f, t = step(carry[0], carry[1], bit.astype(jnp.bool_), rows)
-            return (f, t), None
-
-        (f, t), _ = jax.lax.scan(body, (f0, t_init), xs)
+    (f, t), _ = jax.lax.scan(body, (f0, t_init), xs)
 
     # Frobenius correction adds (static tail)
     if has_var:
@@ -572,11 +434,8 @@ def miller_product_mixed(var_p, var_q, fixed_ps, tables, row_fn=None,
         f = _mul_by_line(f, line, xp, yp, skip=skip_v)
     for k in range(2):
         for j in range(nf):
-            if tail_fn is not None:
-                tc1, tc3 = tail_fn(j, k)
-            else:
-                tc1 = jnp.asarray(tables[j].tail_c1)[k]
-                tc3 = jnp.asarray(tables[j].tail_c3)[k]
+            tc1 = jnp.asarray(tables[j].tail_c1)[k]
+            tc3 = jnp.asarray(tables[j].tail_c3)[k]
             f = _fixed_line_apply(
                 f, tc1, tc3, fixed_ps[j][0], fixed_ps[j][1], fixed_inf[j]
             )
@@ -609,7 +468,6 @@ def pairing_batch_is_one(pairs_p, pairs_q):
 # paying its own multi-minute XLA compile.
 # ---------------------------------------------------------------------------
 
-miller_loop_jit = jax.jit(miller_loop)
 miller_product_jit = jax.jit(_miller_product)
 final_exponentiation_jit = jax.jit(final_exponentiation)
 _miller_mixed_var_jit = jax.jit(
@@ -621,7 +479,7 @@ _miller_mixed_novar_jit = jax.jit(
 
 
 def miller_mixed_hostcall(var_p, var_q, fixed_ps, tables):
-    """Jitted mixed Miller product (XLA tier); tables may be numpy."""
+    """Jitted mixed Miller product; tables may be numpy."""
     tables = tuple(
         type(tb)(*(jnp.asarray(a) for a in tb)) for tb in tables
     )
@@ -632,31 +490,11 @@ def miller_mixed_hostcall(var_p, var_q, fixed_ps, tables):
 
 
 def pairing_mixed_hostcall(var_p, var_q, fixed_ps, tables):
-    """final_exp(mixed Miller product), tier-dispatched (Pallas on TPU)."""
-    if F.use_pallas():
-        from . import pairing_pallas as PP
-
-        return PP.final_exp_mega(
-            PP.miller_mixed_mega(var_p, var_q, fixed_ps, tables)
-        )
+    """final_exp(mixed Miller product) as two jitted stages."""
     return final_exponentiation_jit(
         miller_mixed_hostcall(var_p, var_q, fixed_ps, tables)
     )
 
 
-def pairing_hostcall(p_affine, q_affine):
-    if F.use_pallas():
-        from . import pairing_pallas as PP
-
-        pp = tuple(jnp.asarray(x)[None] for x in p_affine)
-        qq = tuple(jnp.asarray(x)[None] for x in q_affine)
-        return PP.final_exp_mega(PP.miller_product_mega(pp, qq))
-    return final_exponentiation_jit(miller_loop_jit(p_affine, q_affine))
-
-
 def pairing_batch_hostcall(pairs_p, pairs_q):
-    if F.use_pallas():
-        from . import pairing_pallas as PP
-
-        return PP.final_exp_mega(PP.miller_product_mega(pairs_p, pairs_q))
     return final_exponentiation_jit(miller_product_jit(pairs_p, pairs_q))

@@ -1,7 +1,7 @@
-"""BN254 extension tower on TPU: Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3-XI),
+"""BN254 extension tower: Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3-XI),
 Fq12 = Fq6[w]/(w^2-v), XI = 9+u.
 
-TPU-first representation: a degree-C tower element is ONE uint32 array of
+Representation: a degree-C tower element is ONE uint32 array of
 shape ``(16, C, *batch)`` — limbs, then a component axis, then batch:
 
     Fq2 : (16, 2, *b)   [re, im]
@@ -13,8 +13,8 @@ rides along as batch — so a tower add/sub/neg is a single field op, and the
 multiplication schedules below flatten each level's *independent* Montgomery
 products into one wide ``mont_mul`` call (54 lanes for a full Fq12 multiply).
 This keeps the traced graph ~25x smaller than composing scalar field calls
-and hands XLA large, well-shaped elementwise ops (the batch axis maps to VPU
-lanes, limbs+components to sublanes).
+and hands XLA large, well-shaped elementwise ops (the batch axis is the
+contiguous trailing axis).
 
 Formulas mirror the oracle (oracle/bn254.py); every constant (XI powers,
 Frobenius gammas) is derived numerically from the oracle. Replaces
@@ -39,17 +39,7 @@ FQ = F.FQ
 
 
 def pack_const(coeffs, like):
-    """List of C Fq ints -> (16, C, 1...) broadcastable device constant.
-    Kernel mode builds it from python scalars (no captured arrays)."""
-    if F.IN_KERNEL:
-        batch = like.shape[2:]
-        cols = []
-        for c in coeffs:
-            limbs = FQ.pack_scalar(c)
-            cols.append(
-                jnp.stack([jnp.full(batch, int(v), jnp.uint32) for v in limbs])
-            )
-        return jnp.stack(cols, axis=1)  # (16, C, *batch)
+    """List of C Fq ints -> (16, C, 1...) broadcastable device constant."""
     arr = np.stack([FQ.pack_scalar(c) for c in coeffs], axis=1)
     extra = (1,) * (like.ndim - 2)
     return jnp.asarray(arr).reshape((16, len(coeffs)) + extra)
@@ -69,13 +59,7 @@ def _mul_many(a_parts, b_parts):
 
 def fq2_mul_many(pairs):
     """Karatsuba Fq2 products, all flattened into a single width-3k
-    Montgomery call. pairs: list of ((16,2,*b), (16,2,*b)).
-
-    Kernel mode multiplies pair-by-pair instead (width 3 each): inside a
-    Pallas kernel fusion is free and VMEM is the binding constraint, so
-    small temporaries beat wide stacking."""
-    if F.IN_KERNEL:
-        return [_fq2_mul_one(a, b) for a, b in pairs]
+    Montgomery call. pairs: list of ((16,2,*b), (16,2,*b))."""
     k = len(pairs)
     a = jnp.stack([p[0] for p in pairs], axis=1)  # (16, k, 2, *b)
     b = jnp.stack([p[1] for p in pairs], axis=1)
@@ -94,18 +78,6 @@ def fq2_mul_many(pairs):
 # ---------------------------------------------------------------------------
 # Fq2
 # ---------------------------------------------------------------------------
-
-
-def _fq2_mul_one(a, b):
-    """Single Karatsuba Fq2 product as one width-3 Montgomery call."""
-    sa = F.fq_add(a[:, 0], a[:, 1])
-    sb = F.fq_add(b[:, 0], b[:, 1])
-    A = jnp.stack([a[:, 0], a[:, 1], sa], axis=1)
-    B = jnp.stack([b[:, 0], b[:, 1], sb], axis=1)
-    t = F.fq_mul(A, B)
-    c0 = F.fq_sub(t[:, 0], t[:, 1])
-    c1 = F.fq_sub(t[:, 2], F.fq_add(t[:, 0], t[:, 1]))
-    return jnp.stack([c0, c1], axis=1)
 
 
 def fq2_parts(a):
@@ -416,7 +388,7 @@ def fq12_frobenius(a, power: int = 1):
     prods = fq2_mul_many(
         [(c, jnp.broadcast_to(k, c.shape)) for c, k in zip(coeffs, consts)]
     )
-    # reassemble by component order (kernel-safe: concat, no scatters):
+    # reassemble by component order (a concat, no scatters):
     # component slot 6h+2j holds w-basis coeff i where (h, j) = _WB_ORDER[i]
     slot_to_wb = {6 * h + 2 * j: i for i, (h, j) in enumerate(_WB_ORDER)}
     return jnp.concatenate(

@@ -2,7 +2,7 @@
 
 Whole batches of proofs are verified in one (or, for PlonK, two) jitted
 device programs, with the batch riding the trailing axis of every limb
-tensor (mapped to VPU lanes). Host work is restricted to byte parsing and
+tensor. Host work is restricted to byte parsing and
 Fiat-Shamir/Fr scalar algebra — O(KB) per proof.
 
 Per-lane error isolation (SURVEY.md §5 "failure detection"): a proof that
@@ -176,8 +176,7 @@ def _pippenger_affine_b(points, scalars, c=8):
 
 def _msm_affine(points, scalars):
     """Batched MSM -> affine. Size-dispatched: Pippenger buckets above
-    ops/msm.py::PIPPENGER_THRESHOLD, else the chunked windowed Pallas
-    kernels on TPU or the jitted XLA windowed scan elsewhere. Batch
+    ops/msm.py::PIPPENGER_THRESHOLD, else the jitted windowed scan. Batch
     bucketed (see _bucket_size)."""
     b = points[0].shape[-1]
     bt = _bucket_size(b)
@@ -186,10 +185,6 @@ def _msm_affine(points, scalars):
         scalars = _pad_trailing(jnp.asarray(scalars), bt)
     if points[0].shape[0] >= M.PIPPENGER_THRESHOLD:
         out = _pippenger_affine_b(points, jnp.asarray(scalars))
-    elif F.use_pallas():
-        from ..ops import pairing_pallas as PP
-
-        out = PP.msm_affine_mega(points, jnp.asarray(scalars))
     else:
         out = _msm_kernel_b(points[0].shape[0], points, scalars)
     if bt != b:
@@ -202,19 +197,10 @@ def _groth16_pipeline(n_inputs, k_points, scalars, ar, bs, krs, line_tables,
     """Same computation as _groth16_kernel but composed from separately
     jitted stages so the persistent compile cache is shared across batch
     sizes and entry points."""
-    if F.use_pallas():
-        # fold k0 in with scalar 1: prepared = 1*k0 + sum inputs_i * k_{i+1}
-        b = k_points[0].shape[-1]
-        one_row = np.broadcast_to(
-            F.FR.pack_scalar(1, mont=False)[:, None], (16, b)
-        )
-        sc_full = np.concatenate([one_row[None], np.asarray(scalars)], axis=0)
-        prepared = _msm_affine(k_points, sc_full)
-    else:
-        prepared = _g16_prepare_jit(n_inputs, k_points, scalars)
+    prepared = _g16_prepare_jit(n_inputs, k_points, scalars)
     # prepared stays DEVICE-resident into the pairing stage (a host sync
     # here costs a device->host->device round trip per batch and strips
-    # mesh placement; VERDICT r04 weak #7)
+    # mesh placement)
     gt = PR.pairing_mixed_hostcall(ar, bs, (prepared, krs), tuple(line_tables))
     return _gt_eq_masked(gt, alpha_beta, valid)
 
@@ -225,10 +211,16 @@ class Groth16BatchVerifier:
     Realizes the reference's dead PreparedVerifyingKey (groth16/verify.rs:45)
     and replaces its per-call pairing(alpha, beta) recomputation
     (groth16/verify.rs:70) with a one-time device pairing.
+
+    With a ``mesh`` (parallel/sharded.py::make_mesh), every per-lane array
+    is placed with its batch axis on the mesh's "data" axis, so one batch
+    spreads over the devices with no collectives; the batch size must be a
+    multiple of that axis.
     """
 
-    def __init__(self, vk_bytes: bytes):
+    def __init__(self, vk_bytes: bytes, mesh=None):
         self.vk = ser.load_groth16_verifying_key_from_bytes(vk_bytes)
+        self.mesh = mesh
         self.n_inputs = len(self.vk.k) - 1
         self._alpha_beta_single = None  # (16,12,1) device Gt, computed lazily
         self._tables = None  # (gamma, -delta) Miller line tables, lazy
@@ -285,15 +277,15 @@ class Groth16BatchVerifier:
         """Dispatch one batch WITHOUT syncing: returns the device bool
         array. JAX dispatch is asynchronous, so the caller can prepare and
         dispatch the next batch while this one executes — pipelined
-        throughput hides the device time and the fixed device->host fetch
-        round trip (~60 ms on a remote attachment) behind host parsing of
-        the next batch. ``verify_batch`` is this plus a sync."""
+        throughput hides the device time and the device->host fetch behind
+        host parsing of the next batch. ``verify_batch`` is this plus a
+        sync."""
         b = len(proofs)
         assert len(public_inputs) == b
-        on_curve_dev = None
         parsed = self._parse_proofs(proofs)
-        if parsed is not None:
-            ar, bs, krs, valid, on_curve_dev = parsed
+        native = parsed is not None
+        if native:
+            ar, bs, krs, valid = parsed
         else:
             ar, bs, krs, valid = self._parse_proofs_python(proofs)
         scalars = []
@@ -313,12 +305,17 @@ class Groth16BatchVerifier:
         else:
             sc = np.zeros((0, 16, b), np.uint32)
         ab = np.broadcast_to(self._alpha_beta(), (16, 12, b))
-        valid_dev = jnp.asarray(valid)
-        if on_curve_dev is not None:
-            # AND the device-computed G2 on-curve mask here instead of
-            # syncing it to host in the parse stage — one fewer fixed-cost
-            # device->host round trip per batch
-            valid_dev = jnp.logical_and(valid_dev, on_curve_dev)
+        lanes = (k_stack, sc, ar, bs, krs, ab, valid)
+        if self.mesh is not None:
+            from .sharded import shard_batch
+
+            lanes = shard_batch(lanes, self.mesh)
+        k_stack, sc, ar, bs, krs, ab, valid_dev = lanes
+        if native:
+            # the native parse leaves the G2 on-curve check to the device;
+            # its mask is ANDed here instead of synced to host in the parse
+            # stage — one fewer device->host round trip per batch
+            valid_dev = jnp.logical_and(valid_dev, _g2_on_curve_jit(bs))
         return _groth16_pipeline(
             self.n_inputs, k_stack, sc, ar, bs, krs, self._line_tables(),
             ab, valid_dev,
@@ -326,7 +323,8 @@ class Groth16BatchVerifier:
 
     def _parse_proofs(self, proofs: Sequence[bytes]):
         """Native batch parse (C++ data-plane); None if unavailable or the
-        proofs have heterogeneous lengths. G2 on-curve checked on device."""
+        proofs have heterogeneous lengths. The G2 on-curve check is left to
+        the device (see verify_batch_async)."""
         from ..utils import native
 
         if not native.native_available() or not proofs:
@@ -343,10 +341,7 @@ class Groth16BatchVerifier:
         bs_x = np.stack([outs["bs_x0"], outs["bs_x1"]], 1)
         bs_y = np.stack([outs["bs_y0"], outs["bs_y1"]], 1)
         bs = (bs_x, bs_y, zeros)
-        # G2 on-curve check on device (Fq2 arithmetic); stays a DEVICE
-        # value — the caller folds it into the pipeline's valid mask
-        on_curve = _g2_on_curve_jit(bs)
-        return ar, bs, krs, valid, on_curve
+        return ar, bs, krs, valid
 
     def _parse_proofs_python(self, proofs: Sequence[bytes]):
         b = len(proofs)
@@ -399,7 +394,7 @@ def _plonk_final_kernel(combo_points, combo_scalars, quot_points, quot_scalars,
     quot = _msm_affine(quot_points, quot_scalars)
     neg_quot = _negate_affine_y(quot)
     # combo/neg_quot stay device-resident into the pairing stage (no host
-    # sync between MSM and pairing; VERDICT r04 weak #7)
+    # sync between MSM and pairing)
     gt = PR.pairing_mixed_hostcall(
         None, None, (combo, neg_quot), tuple(line_tables)
     )

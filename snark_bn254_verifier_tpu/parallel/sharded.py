@@ -1,7 +1,7 @@
 """Multi-chip sharding: device meshes, data-parallel batches, sharded MSM.
 
-TPU-native replacements for the distributed layer the reference lacks
-(SURVEY.md §2 parallelism inventory: none — single-threaded Rust):
+The distributed layer the reference lacks (SURVEY.md §2 parallelism
+inventory: none — single-threaded Rust):
 
   * ``make_mesh`` — a ("data", "model") jax.sharding.Mesh.
   * ``shard_batch`` — places the batch (trailing) axis of every limb tensor
@@ -10,10 +10,10 @@ TPU-native replacements for the distributed layer the reference lacks
   * ``sharded_msm`` — MSM with the *points* axis sharded over "model":
     each chip computes a local partial MSM (Straus or Pippenger by size,
     ops/msm.py::msm_best); the per-chip partials (3 Jacobian coordinates,
-    ~1.5 KB) are gathered over ICI by XLA's sharding propagation and
+    ~1.5 KB) are gathered between devices by XLA's sharding propagation and
     tree-added (group addition is not a psum-able ring op, so gather+add
     is the collective of choice).
-  * ``init_distributed`` — multi-host (DCN) initialization; the same
+  * ``init_distributed`` — multi-host initialization; the same
     meshes then span all hosts' chips (tested 2-process on CPU,
     tests/test_multihost.py).
 """
@@ -36,15 +36,14 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host (DCN) initialization: one JAX process per host, meshes
-    spanning every host's chips, collectives riding ICI within a slice and
-    DCN across hosts.
+    """Multi-host initialization: one JAX process per host, meshes
+    spanning every host's devices.
 
-    On TPU pods the three arguments are auto-detected from the environment
-    (pass nothing); for explicit clusters (or the 2-process CPU test,
-    tests/test_multihost.py) pass all three. Idempotent. The reference has
-    no distributed layer at all (SURVEY.md §2 parallelism inventory); this
-    is the TPU-native analogue mandated by BASELINE.json's v5e-16 target.
+    Pass all three arguments (coordinator ``host:port``, process count and
+    this process's id); with none, ``jax.distributed.initialize`` relies on
+    a cluster environment it can detect. Idempotent. The 2-process CPU test
+    is tests/test_multihost.py. The reference has no distributed layer at
+    all (SURVEY.md §2 parallelism inventory).
     """
     import jax
 
@@ -102,44 +101,27 @@ def replicate(tree, mesh: Mesh):
 def sharded_msm_program(mesh: Mesh, axis: str = "model", c: int = 8):
     """Build the (unjitted) sharded-MSM program for ``mesh``.
 
-    Split from :func:`sharded_msm` so the test suite can TRACE the exact
-    shard_map x Pallas program (``jax.jit(prog).trace(...)``) without
-    executing it — the round-3 TPU bench crash was a trace-time failure of
-    precisely this combination, reproducible on CPU
-    (tests/test_pallas_shard.py).
+    Split from :func:`sharded_msm` so that tests can trace the program
+    (``jax.jit(prog).trace(...)``) without executing it.
     """
     from jax import shard_map
 
-    from ..ops import field as F
     from ..ops import msm as M
 
     pspec = (P(axis), P(axis), P(axis))
     sspec = P(axis)
 
-    # check_vma stays ON (the default) for the production (compiled) path:
-    # the field/curve kernels derive their scan-carry inits from the inputs
-    # (`vz = (a+b)*0` in ops/field.py mont_mul/add/sub and ops/curve.py
-    # _inf_point) so carries inherit the inputs' varying mesh axes, and the
-    # Pallas wrappers declare their out_shapes' vma from the inputs
-    # (ops/field_pallas.py::out_vma — round-3 TPU bench crash fix). The
-    # shard_map emits per-device partials (out_specs=P(axis) — honestly
-    # typed as varying); the Jacobian reduction happens OUTSIDE the manual
-    # region, where XLA's sharding propagation inserts the gather over ICI.
-    #
-    # The ONE exception: Pallas interpret mode (CPU regression tests,
-    # TPU_BN254_PALLAS_INTERPRET=1). The Pallas interpreter evaluates its
-    # block-slicing jaxpr under the shard_map trace and mixes varying block
-    # data with non-varying index constants, which the vma checker rejects
-    # inside JAX itself ("Primitive dynamic_slice requires varying manual
-    # axes to match ... as a temporary workaround pass check_vma=False").
-    check_vma = not (F.use_pallas() and F.pallas_interpret())
-
+    # check_vma stays ON: the field/curve code derives its scan-carry
+    # inits from the inputs (`vz = (a+b)*0` in ops/field.py mont_mul/add/sub
+    # and ops/curve.py _inf_point) so carries inherit the inputs' varying
+    # mesh axes. The shard_map emits per-device partials (out_specs=P(axis) — honestly typed as varying);
+    # the Jacobian reduction happens OUTSIDE the manual region, where XLA's
+    # sharding propagation inserts the gather between devices.
     @functools.partial(
         shard_map,
         mesh=mesh,
         in_specs=(pspec, sspec),
         out_specs=(P(axis), P(axis), P(axis)),
-        check_vma=check_vma,
     )
     def run(local_points, local_scalars):
         part = M.msm_best(local_points, local_scalars, c=c)  # local Jacobian
@@ -179,6 +161,12 @@ def sharded_msm(mesh: Mesh, points, scalars, axis: str = "model", c: int = 8):
     PIPPENGER_THRESHOLD — the BASELINE 2^16-point config runs Pippenger on
     every chip's 2^16/n_chips-point shard.
     """
-    # jit the whole sharded program: eager shard_map would dispatch the
-    # traced body op-by-op (hundreds of tiny compiles)
-    return jax.jit(sharded_msm_program(mesh, axis=axis, c=c))(points, scalars)
+    return _sharded_msm_jit(mesh, axis, c)(points, scalars)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_msm_jit(mesh: Mesh, axis: str, c: int):
+    # jit the whole sharded program (eager shard_map would dispatch the
+    # traced body op-by-op), once per (mesh, axis, c) so that repeated
+    # calls reuse the compiled executable instead of retracing
+    return jax.jit(sharded_msm_program(mesh, axis=axis, c=c))

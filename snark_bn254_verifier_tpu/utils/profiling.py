@@ -1,8 +1,8 @@
 """Tracing / profiling / observability.
 
 The reference's only instrumentation is SP1 zkVM cycle-tracker markers
-(examples/program/src/groth16.rs:19-21; SURVEY.md §5). The TPU-native
-equivalents here:
+(examples/program/src/groth16.rs:19-21; SURVEY.md §5). The equivalents
+here:
 
   * ``section(name)`` — lightweight wall-clock section timer.
   * ``trace(path)`` — jax.profiler trace context for TensorBoard-compatible
@@ -42,7 +42,7 @@ def reset_timings() -> None:
 
 
 @contextlib.contextmanager
-def trace(path: str = "/tmp/tpu_bn254_trace"):
+def trace(path: str):
     """Device-level profiler trace (view with TensorBoard / xprof)."""
     import jax
 

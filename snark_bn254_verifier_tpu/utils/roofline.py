@@ -1,8 +1,7 @@
-"""Roofline accounting: Montgomery-multiply counts per verification.
+"""Work accounting: Montgomery-multiply counts per verification.
 
-Answers "is N proofs/sec/chip actually fast?" by converting measured
-throughput into 256-bit Montgomery multiplies/sec and comparing with the
-VPU integer-MAC peak of the chip (VERDICT r3 item #5).
+Converts measured throughput into 256-bit Montgomery multiplies/sec, the
+unit of work a device peak can later be divided into.
 
 Method: the unit of work in this framework is the 16x16-bit-limb CIOS
 Montgomery multiply (ops/field.py::mont_mul — 2*16*16 = 512 u32
@@ -18,9 +17,8 @@ the code, not a hand-derived formula. Fermat ``pow_const`` towers are
 charged analytically (2 mults/exponent-bit) because their lax.scan bodies
 only execute once under eager tracing.
 
-Costs exclude uint32 adds/subs/selects (they ride the same VPU lanes but
-are ~10x fewer ops than the MAC chains) — the roofline fraction is
-therefore an UNDERestimate of achieved utilization.
+Costs exclude uint32 adds/subs/selects (~10x fewer ops than the MAC
+chains), so a rate derived from these counts UNDERestimates the work done.
 """
 
 from __future__ import annotations
@@ -31,13 +29,6 @@ from contextlib import contextmanager
 import numpy as np
 
 MACS_PER_MONT_MUL = 2 * 16 * 16  # CIOS: a_i*b_j and m_i*n_j inner products
-
-# v5e VPU integer peak, documented assumption (see ARCHITECTURE.md):
-# 8 sublanes x 128 lanes x 4 ALUs x ~1.5 GHz clock (derived from the
-# published 197 bf16 TFLOP/s = 4 MXUs * 128*128 * 2 * clock), with one
-# 32-bit multiply-accumulate costing 2 VPU ops (mul + add). This is an
-# optimistic single-cycle-multiply upper bound.
-V5E_VPU_MACS_PER_SEC = 8 * 128 * 4 * 1.5e9 / 2
 
 
 @contextmanager
@@ -134,8 +125,8 @@ def _leaf_costs() -> dict:
         f2 = T.fq12_inv(f12)
         f = T.fq12_mul(f1, f2)
         T.fq12_mul(T.fq12_frobenius(f, 2), f)
-        for i in range(1, 4):
-            T.fq12_frobenius(f, i)  # the 4 Straus bases
+        for i in range(1, len(PR._HARD_DIGITS)):
+            T.fq12_frobenius(f, i)  # the digit-Straus bases
 
     def var_dbl_line():
         t, line = PR._dbl_step(t_pt)
@@ -183,20 +174,18 @@ def miller_loop_mults() -> int:
 
 @functools.lru_cache(maxsize=None)
 def final_exp_mults() -> int:
-    """x-chain hard part (ops/pairing.py::final_exponentiation): easy part,
-    3 rolled cyclotomic exponentiations by x (one squaring + one selected
-    multiply per bit), and the fixed Straus combine (12 squarings, 18
-    multiplies, 3 Frobenius — counted from the schedule in the source).
-    Composed from measured leaf costs (tracing the full chain takes
-    minutes on a small host)."""
+    """Digit-Straus final exponentiation (ops/pairing.py::
+    final_exponentiation): easy part, the subset-product table (one fq12
+    multiply per entry that is not a single base), then one cyclotomic
+    squaring + one fq12 multiply per digit bit. Composed from measured leaf
+    costs and the schedule constants the scans trace over."""
     from ..ops import pairing as PR
 
     c = _leaf_costs()
-    # rolled exp_by_x: both branches execute every bit (select keeps one)
-    n_bits = len(PR._X_BITS) - 1
-    exp_x = n_bits * (c["fq12_cyc_sq"] + c["fq12_mul"])
-    chain = 12 * c["fq12_cyc_sq"] + 18 * c["fq12_mul"] + 3 * c["frobenius"]
-    return c["fe_easy"] + 3 * exp_x + chain
+    n_bases = len(PR._HARD_DIGITS)
+    table = ((1 << n_bases) - 1 - n_bases) * c["fq12_mul"]
+    digits = len(PR._STEP_IDX) * (c["fq12_cyc_sq"] + c["fq12_mul"])
+    return c["fe_easy"] + table + digits
 
 
 def pairing_product_mults(n_pairs: int) -> int:
@@ -236,11 +225,9 @@ def straus_msm_mults(n_points: int) -> int:
 
 
 def windowed_msm_mults(n_points: int, w: int = 4) -> int:
-    """Windowed Straus (ops/curve.py::msm_windowed / the chunked Pallas
-    kernels): per-point table of 2^w - 2 sequential mixed adds (the XLA
-    tier's scan; the Pallas kernel's dbl/add ladder is slightly cheaper —
-    this is the upper bound), 256 shared doublings, one FULL Jacobian add
-    per point per window."""
+    """Windowed Straus (ops/curve.py::msm_windowed): per-point table of
+    2^w - 2 sequential mixed adds, 256 shared doublings, one FULL Jacobian
+    add per point per window."""
     c = _leaf_costs()
     nent = 1 << w
     table = n_points * (nent - 2) * c["jac_add_mixed"]
@@ -250,11 +237,12 @@ def windowed_msm_mults(n_points: int, w: int = 4) -> int:
 
 def groth16_mults_per_proof(n_inputs: int = 2) -> int:
     """Device mults for one proof lane of the batched Groth16 pipeline
-    (parallel/batch.py::_groth16_pipeline, Pallas shape: (n_inputs+1)-point
-    MSM folding k0 with scalar 1, then the 3-pair product)."""
+    (parallel/batch.py::_groth16_pipeline: the n_inputs-point windowed MSM,
+    one mixed add of k0, to affine, then the 3-pair mixed product)."""
     c = _leaf_costs()
     return (
-        windowed_msm_mults(n_inputs + 1)
+        windowed_msm_mults(n_inputs)
+        + c["jac_add_mixed"]
         + c["to_affine"]
         + mixed_product_mults(nf=2, has_var=True)
     )
@@ -277,11 +265,10 @@ def plonk_mults_per_proof(n_qcp: int = 0) -> int:
 
 
 def roofline_fields(proofs_per_sec_per_chip: float, mults_per_proof: int) -> dict:
-    """Bench-line fields: measured mult rate and fraction of the VPU peak."""
+    """Bench-line fields: counted work per proof and the measured mult
+    rate. No device peak is applied here."""
     mults_per_sec = proofs_per_sec_per_chip * mults_per_proof
-    macs = mults_per_sec * MACS_PER_MONT_MUL
     return {
         "mults_per_proof": int(mults_per_proof),
         "mont_mults_per_sec": round(mults_per_sec, 1),
-        "pct_vpu_roofline": round(100.0 * macs / V5E_VPU_MACS_PER_SEC, 2),
     }

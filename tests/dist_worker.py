@@ -1,4 +1,4 @@
-"""Multi-process (DCN-analogue) worker: one JAX process of a 2-process x
+"""Multi-process worker: one JAX process of a 2-process x
 4-device CPU cluster running a sharded MSM over the GLOBAL 8-device mesh.
 
 Launched by tests/test_multihost.py with
@@ -8,7 +8,7 @@ this module runs). Exits 0 iff the globally-sharded MSM bit-equals the
 trapdoor oracle on this process.
 
 This is the standard way to exercise jax.distributed/multi-host jit without
-a multi-host TPU slice: process boundaries are real (separate runtimes,
+several hosts: process boundaries are real (separate runtimes,
 cross-process collectives), only the transport differs.
 """
 

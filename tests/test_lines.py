@@ -7,9 +7,6 @@ These are the building blocks of BOTH production batch pipelines
 VK-fixed pairs, PlonK/KZG via two fixed pairs only. Reference behavior
 being matched: bn::pairing_batch over those pairs
 (verifier/src/groth16/verify.rs:73-77, verifier/src/plonk/kzg.rs:180-186).
-
-The Pallas (Mosaic) tier of the same computation is validated on hardware
-by bench.py::bench_pallas_validation / tools/validate_mixed_tpu.py.
 """
 
 import random

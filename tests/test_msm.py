@@ -72,7 +72,7 @@ def test_sharded_msm_pippenger_large():
     """2^12-point MSM sharded over the 8-device mesh: each chip runs a
     512-point Pippenger shard (the BASELINE 2^16 config's code path) and
     the reduced result bit-equals the trapdoor expectation. (2^12 keeps the
-    CPU-mesh runtime bounded; the full 2^16 runs on TPU via bench.py.)"""
+    CPU-mesh runtime bounded; the full 2^16 runs on the GPU via bench.py.)"""
     from snark_bn254_verifier_tpu.parallel.sharded import make_mesh, sharded_msm
 
     n = 1 << 12

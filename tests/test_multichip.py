@@ -1,5 +1,5 @@
 """Multi-chip sharding on the virtual 8-device CPU mesh (the standard way to
-test TPU collectives without a TPU; see tests/conftest.py)."""
+test collectives without several accelerators; see tests/conftest.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -63,3 +63,16 @@ def test_graft_entry_importable():
     spec.loader.exec_module(mod)
     assert callable(mod.entry)
     assert callable(mod.dryrun_multichip)
+
+
+@requires_multidevice
+def test_groth16_batch_verifier_on_data_mesh():
+    """Groth16BatchVerifier(vk, mesh=...) spreads one batch over a 4-way
+    data mesh and accepts exactly the valid lanes."""
+    import chip_smoke
+    from snark_bn254_verifier_tpu.parallel.batch import Groth16BatchVerifier
+
+    mesh = S.make_mesh(4, model_parallelism=1)
+    vk, proofs, inputs, kinds = chip_smoke.lane_plan("groth16", 8)
+    got = Groth16BatchVerifier(vk, mesh=mesh).verify_batch(proofs, inputs)
+    assert got.tolist() == [k == "valid" for k in kinds]

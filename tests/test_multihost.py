@@ -1,12 +1,11 @@
-"""Multi-host (DCN) distribution: 2 JAX processes x 4 CPU devices each.
+"""Multi-host distribution: 2 JAX processes x 4 CPU devices each.
 
 The reference is single-threaded Rust with no distributed layer
-(SURVEY.md §2 parallelism inventory); BASELINE.json's north star is a
-multi-host v5e-16 slice. This test runs the real multi-process stack —
-``jax.distributed.initialize``, a global 8-device mesh spanning both
-processes, ``shard_map`` + cross-process combination — on CPU, the
-standard TPU-less proxy (process boundaries and collectives are real;
-only the transport differs from DCN).
+(SURVEY.md §2 parallelism inventory). This test runs the real
+multi-process stack — ``jax.distributed.initialize``, a global 8-device
+mesh spanning both processes, ``shard_map`` + cross-process combination —
+on CPU, the standard proxy without several hosts (process boundaries and
+collectives are real; only the transport differs).
 """
 
 import os
